@@ -20,8 +20,8 @@ def main():
         os.path.abspath(__file__))))
 
     if mode == "pw":
-        from mecat_tpu.parallel.dist import run_pw_dist
-        from mecat_tpu.pipeline.pw import PwOptions
+        from mecat_jax.parallel.dist import run_pw_dist
+        from mecat_jax.pipeline.pw import PwOptions
 
         opts = PwOptions(task=1, kmer_size=9, scan_stride=4,
                          min_align_size=500, num_candidates=8, scan_batch=4,
@@ -33,8 +33,8 @@ def main():
                             n_data=4, n_hash=2)
         print(f"worker {pid}: {stats.overlaps} overlaps", flush=True)
     elif mode == "cns":
-        from mecat_tpu.parallel.cns_dist import run_cns_dist
-        from mecat_tpu.pipeline.cns import CnsOptions
+        from mecat_jax.parallel.cns_dist import run_cns_dist
+        from mecat_jax.pipeline.cns import CnsOptions
 
         opts = CnsOptions(min_align_size=300, min_length=500,
                           min_mapping_ratio=0.3, align_segment=128,

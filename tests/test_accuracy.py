@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from mecat_tpu.utils.accuracy import (_edit_stats_numpy, edit_stats,
+from mecat_jax.utils.accuracy import (_edit_stats_numpy, edit_stats,
                                       identity_pct)
 
 

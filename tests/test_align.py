@@ -4,11 +4,11 @@ import pytest
 
 jnp = pytest.importorskip("jax.numpy")
 
-from mecat_tpu.ops.align import (IND_K, INF, VINF, banded_dp_segment,
+from mecat_jax.ops.align import (IND_K, INF, VINF, banded_dp_segment,
                                  extend_pair_batch, traceback_counts,
                                  Q_SENTINEL, T_SENTINEL)
-from mecat_tpu.io.packed_db import revcomp
-from mecat_tpu.utils.sim import mutate, random_genome
+from mecat_jax.io.packed_db import revcomp
+from mecat_jax.utils.sim import mutate, random_genome
 
 W, S = 32, 64
 
@@ -182,8 +182,8 @@ def test_ops_tapes_invariant_to_segment_budgets():
     as the segments actually applied must give identical alignments and
     identical op tapes (compared as right-aligned column lists).
     """
-    from mecat_tpu.ops.align import extend_pair_batch_with_ops
-    from mecat_tpu.ops.consensus import tapes_to_columns
+    from mecat_jax.ops.align import extend_pair_batch_with_ops
+    from mecat_jax.ops.consensus import tapes_to_columns
 
     rng = np.random.default_rng(123)
     B, Lq, Lt = 4, 700, 700
@@ -225,8 +225,8 @@ def test_max_tape_cols_never_truncates_gated_segments():
     """max_tape_cols(S, W, p) must cover every identity-gated segment: the
     number of alignment columns of any applied segment is bounded by
     (2S + W/2)/(1 + p) (see the derivation in ops/align.max_tape_cols)."""
-    from mecat_tpu.ops.align import max_tape_cols
-    from mecat_tpu import constants as Cn
+    from mecat_jax.ops.align import max_tape_cols
+    from mecat_jax import constants as Cn
 
     for (s, w) in [(64, 32), (128, 64), (512, 128)]:
         tc = max_tape_cols(s, w, Cn.MIN_SEGMENT_IDENTITY)

@@ -10,14 +10,14 @@ import os
 import numpy as np
 import pytest
 
-from mecat_tpu.assembly.ctgcns import CtgCnsOptions, stitch_backbone
-from mecat_tpu.assembly.ovstore import OverlapStore
-from mecat_tpu.assembly.unitig import (arrays_to_layouts, build_unitigs,
+from mecat_jax.assembly.ctgcns import CtgCnsOptions, stitch_backbone
+from mecat_jax.assembly.ovstore import OverlapStore
+from mecat_jax.assembly.unitig import (arrays_to_layouts, build_unitigs,
                                        layouts_to_arrays)
-from mecat_tpu.io.fasta import decode_bases, write_fasta
-from mecat_tpu.io.m4 import M4Record, write_records
-from mecat_tpu.io.packed_db import PackedDB, revcomp
-from mecat_tpu.utils.sim import random_genome
+from mecat_jax.io.fasta import decode_bases, write_fasta
+from mecat_jax.io.m4 import M4Record, write_records
+from mecat_jax.io.packed_db import PackedDB, revcomp
+from mecat_jax.utils.sim import random_genome
 
 
 def _m4(q, s, qspan, sspan, qlen, slen, strand=0, ident=99.0, score=100):
@@ -146,8 +146,8 @@ def test_stitch_backbone_reconstructs_genome():
 
 def test_assembly_driver_end_to_end(tmp_path):
     """Sim genome → error-free tiled reads → contigs ≈ genome; resumable."""
-    from mecat_tpu.assembly.driver import AsmOptions, run_assembly
-    from mecat_tpu.pipeline.pw import PwOptions
+    from mecat_jax.assembly.driver import AsmOptions, run_assembly
+    from mecat_jax.pipeline.pw import PwOptions
 
     genome = random_genome(12000, seed=12)
     read_len, step = 2000, 1200
@@ -194,7 +194,7 @@ def _identity_vs(genome: str, contig: str) -> float:
 def test_erate_estimator_recovers_read_errors(tmp_path):
     """Jacobi least-squares recovers heterogeneous per-read error rates from
     pairwise divergences d_ab = e_a + e_b (+ binomial sampling noise)."""
-    from mecat_tpu.assembly.erate import estimate_read_erates
+    from mecat_jax.assembly.erate import estimate_read_erates
 
     rng = np.random.default_rng(41)
     n = 60
@@ -227,7 +227,7 @@ def test_erate_adjustment_levels_the_field(tmp_path):
     repeat-induced overlap between clean reads — the opposite of what any
     single RAW-identity cutoff can do (the true overlap's raw identity is
     LOWER than the false one's)."""
-    from mecat_tpu.assembly.erate import estimate_read_erates
+    from mecat_jax.assembly.erate import estimate_read_erates
 
     rng = np.random.default_rng(42)
     n = 40
@@ -265,7 +265,7 @@ def test_erate_adjustment_levels_the_field(tmp_path):
 
 
 def test_meryl_spectrum_and_cutoff():
-    from mecat_tpu.index.meryl import (kmer_counts, kmer_histogram,
+    from mecat_jax.index.meryl import (kmer_counts, kmer_histogram,
                                        pick_freq_cutoff)
     genome = random_genome(3000, seed=13)
     # db with 3 copies of the same sequence: every k-mer count divisible by 3
@@ -282,12 +282,12 @@ def test_meryl_spectrum_and_cutoff():
 
 def test_polish_device_matches_host():
     """Device tag-table polish == host CnsTable.call_polished, exactly."""
-    from mecat_tpu.assembly.ctgcns import (_polish_contig_device,
+    from mecat_jax.assembly.ctgcns import (_polish_contig_device,
                                            _polish_contig_host,
                                            stitch_backbone)
-    from mecat_tpu.assembly.ovstore import OverlapStore
-    from mecat_tpu.assembly.unitig import build_unitigs
-    from mecat_tpu.io.m4 import write_records
+    from mecat_jax.assembly.ovstore import OverlapStore
+    from mecat_jax.assembly.unitig import build_unitigs
+    from mecat_jax.io.m4 import write_records
     import tempfile
 
     genome = random_genome(6000, seed=77)
@@ -322,13 +322,13 @@ def test_polish_tiled_matches_host(monkeypatch):
     whole-contig vote exactly."""
     import tempfile
 
-    from mecat_tpu.assembly import ctgcns
-    from mecat_tpu.assembly.ctgcns import (_polish_contig_device,
+    from mecat_jax.assembly import ctgcns
+    from mecat_jax.assembly.ctgcns import (_polish_contig_device,
                                            _polish_contig_host,
                                            stitch_backbone)
-    from mecat_tpu.assembly.ovstore import OverlapStore
-    from mecat_tpu.assembly.unitig import build_unitigs
-    from mecat_tpu.io.m4 import write_records
+    from mecat_jax.assembly.ovstore import OverlapStore
+    from mecat_jax.assembly.unitig import build_unitigs
+    from mecat_jax.io.m4 import write_records
 
     genome = random_genome(24000, seed=81)
     read_len, step, n = 1200, 800, 29
@@ -363,11 +363,11 @@ def test_raw_noisy_reads_to_contigs(tmp_path):
 
     This is the README pipeline end-to-end at miniature scale — the other
     e2e tests cover stages in isolation or with error-free reads."""
-    from mecat_tpu.assembly.driver import AsmOptions, run_assembly
-    from mecat_tpu.assembly.ctgcns import CtgCnsOptions
-    from mecat_tpu.pipeline.cns import CnsOptions, run_cns
-    from mecat_tpu.pipeline.pw import PwOptions, run_pw
-    from mecat_tpu.utils.sim import simulate_reads
+    from mecat_jax.assembly.driver import AsmOptions, run_assembly
+    from mecat_jax.assembly.ctgcns import CtgCnsOptions
+    from mecat_jax.pipeline.cns import CnsOptions, run_cns
+    from mecat_jax.pipeline.pw import PwOptions, run_pw
+    from mecat_jax.utils.sim import simulate_reads
 
     genome = random_genome(20000, seed=81)
     db, _ = simulate_reads(genome, 60, mean_len=2500, min_len=1500,
@@ -402,7 +402,7 @@ def test_raw_noisy_reads_to_contigs(tmp_path):
     assert len(longest) >= 0.6 * len(genome)
     # exact banded infix alignment of the contig against the truth genome
     # (utils/accuracy) — _identity_vs overestimates for partial coverage
-    from mecat_tpu.utils.accuracy import edit_stats, identity_pct
+    from mecat_jax.utils.accuracy import edit_stats, identity_pct
     ident = max(
         identity_pct(edit_stats(longest, genome, band=1024, mode=1),
                      len(longest)),

@@ -4,12 +4,12 @@ import pytest
 
 jnp = pytest.importorskip("jax.numpy")
 
-from mecat_tpu.io.fasta import write_fasta
-from mecat_tpu.ops.consensus import GAP, CnsTable, columns_to_tags
-from mecat_tpu.ops.align import MOVE_HORIZ, MOVE_MATCH, MOVE_MISMATCH, MOVE_VERT
-from mecat_tpu.pipeline.cns import CnsOptions, run_cns
-from mecat_tpu.pipeline.pw import PwOptions, run_pw
-from mecat_tpu.utils.sim import random_genome, simulate_reads
+from mecat_jax.io.fasta import write_fasta
+from mecat_jax.ops.consensus import GAP, CnsTable, columns_to_tags
+from mecat_jax.ops.align import MOVE_HORIZ, MOVE_MATCH, MOVE_MISMATCH, MOVE_VERT
+from mecat_jax.pipeline.cns import CnsOptions, run_cns
+from mecat_jax.pipeline.pw import PwOptions, run_pw
+from mecat_jax.utils.sim import random_genome, simulate_reads
 
 PW_OPTS = dict(num_candidates=20, min_align_size=500, kmer_size=8,
                scan_stride=4, scan_batch=16, extend_batch=64,
@@ -101,7 +101,7 @@ def test_cns_table_low_coverage_split():
 # ---------------------------------------------------------------------------
 def identity_to_genome(seq, genome):
     """Best local identity of seq against genome via the package aligner."""
-    from mecat_tpu.ops.align import extend_pair_batch, Q_SENTINEL, T_SENTINEL
+    from mecat_jax.ops.align import extend_pair_batch, Q_SENTINEL, T_SENTINEL
     L = max(1024, (len(seq) + 1023) // 1024 * 1024)
     Lg = (len(genome) + 1023) // 1024 * 1024
     q = np.full((1, L), Q_SENTINEL, np.uint8)
@@ -149,7 +149,7 @@ def test_cns_e2e(cns_setup, input_type):
                     CnsOptions(input_type=input_type, **CNS_OPTS))
     assert stats.corrected_reads > 0
 
-    from mecat_tpu.io.packed_db import PackedDB
+    from mecat_jax.io.packed_db import PackedDB
     cdb = PackedDB.from_fasta(corrected)
     # a decent fraction of reads should survive correction
     assert cdb.n_reads >= db.n_reads * 0.5
@@ -171,7 +171,7 @@ def test_cns_accuracy_gate(cns_setup):
     scored against their KNOWN truth loci with an exact banded alignment
     (utils/accuracy).  Floors pinned ~0.4 under the measured 99.90 median /
     99.74 p5 (2026-08-17) so any vote-rule regression trips them."""
-    from mecat_tpu.utils.accuracy import corrected_accuracy
+    from mecat_jax.utils.accuracy import corrected_accuracy
 
     tmp, reads, db, truths, genome = cns_setup
     corrected = str(tmp / "corrected.i0.fasta")  # from test_cns_e2e[0]
@@ -197,7 +197,7 @@ def test_max_est_coverage_switch(cns_setup):
     pinned: capping recruits strictly fewer supports while the corrected
     accuracy stays at the uncapped level (the cut drops only redundant
     coverage; pile sweeps 2026-08-17 measured a flat identity curve >25x)."""
-    from mecat_tpu.utils.accuracy import corrected_accuracy
+    from mecat_jax.utils.accuracy import corrected_accuracy
 
     tmp, reads, db, truths, genome = cns_setup
     ovl = str(tmp / "ovl.i0")
@@ -235,10 +235,10 @@ def test_cns_streamed_partition_identical(cns_setup, monkeypatch):
         run_pw(reads, ovl, str(tmp / "wrki0"), PwOptions(task=0, **PW_OPTS))
     base = str(tmp / "corr_mem.fasta")
     opts = CnsOptions(input_type=0, partition_size=7, **CNS_OPTS)
-    monkeypatch.setenv("MECAT_TPU_CNS_STREAM", "0")
+    monkeypatch.setenv("MECAT_CNS_STREAM", "0")
     run_cns(ovl, reads, base, opts, db=db)
     streamed = str(tmp / "corr_stream.fasta")
-    monkeypatch.setenv("MECAT_TPU_CNS_STREAM", "1")
+    monkeypatch.setenv("MECAT_CNS_STREAM", "1")
     st = run_cns(ovl, reads, streamed, opts, db=db)
     assert st.corrected_reads > 0
     assert open(base, "rb").read() == open(streamed, "rb").read()
@@ -252,16 +252,16 @@ def test_partition_supports_native_matches_fallback(cns_setup, monkeypatch):
 
     if not os.path.exists(ovl):
         run_pw(reads, ovl, str(tmp / "wrki0"), PwOptions(task=0, **PW_OPTS))
-    from mecat_tpu.pipeline.cns import (load_supports,
+    from mecat_jax.pipeline.cns import (load_supports,
                                         load_supports_partition,
                                         partition_supports)
 
     d_nat = str(tmp / "parts_native")
     parts_nat = partition_supports(ovl, db, 0, d_nat, part_size=11)
-    monkeypatch.setenv("MECAT_TPU_NO_NATIVE", "1")
+    monkeypatch.setenv("MECAT_NO_NATIVE", "1")
     d_py = str(tmp / "parts_py")
     parts_py = partition_supports(ovl, db, 0, d_py, part_size=11)
-    monkeypatch.delenv("MECAT_TPU_NO_NATIVE")
+    monkeypatch.delenv("MECAT_NO_NATIVE")
     assert [(a, b) for a, b, _ in parts_nat] == [(a, b)
                                                  for a, b, _ in parts_py]
     for (_, _, pn), (_, _, pp) in zip(parts_nat, parts_py):
@@ -309,7 +309,7 @@ def test_cns_rounds_improves_and_partition_invariant(cns_setup):
     assert b2 != b1                       # the second round binds
     assert open(out2b, "rb").read() == b2  # partition invariance
 
-    from mecat_tpu.io.packed_db import PackedDB
+    from mecat_jax.io.packed_db import PackedDB
     c1, c2 = PackedDB.from_fasta(out1), PackedDB.from_fasta(out2)
     m1 = np.mean([x for x in
                   (identity_to_genome(c1.read(i), genome)

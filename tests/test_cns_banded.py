@@ -10,14 +10,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mecat_tpu import constants as C
-from mecat_tpu.ops.align import (banded_dp_segment, extend_pair_batch_rows,
+from mecat_jax import constants as C
+from mecat_jax.ops.align import (banded_dp_segment, extend_pair_batch_rows,
                                  extend_pair_batch_with_ops, max_tape_cols,
                                  pick_end_local, rows_to_tape, traceback_ops,
                                  traceback_rows, Q_SENTINEL, T_SENTINEL)
-from mecat_tpu.ops.consensus_banded import banded_accumulate_tags
-from mecat_tpu.ops.consensus_device import accumulate_tags
-from mecat_tpu.utils.sim import mutate, random_genome
+from mecat_jax.ops.consensus_banded import banded_accumulate_tags
+from mecat_jax.ops.consensus_device import accumulate_tags
+from mecat_jax.utils.sim import mutate, random_genome
 
 
 def _pile(S, W, G, B, L_t, L_s, T, err, seed, ins_heavy=False):
@@ -113,7 +113,7 @@ def test_banded_equals_tape_clipped_windows():
     than the seed-centred window)."""
     import jax
 
-    from mecat_tpu.pipeline.cns import make_cns_chunk
+    from mecat_jax.pipeline.cns import make_cns_chunk
 
     P, L_t, L_s = 16, 1024, 2048
     S, W, G = 256, 64, 6

@@ -7,11 +7,11 @@ the host path's corrected reads exactly — same alignments, same vote rules.
 import numpy as np
 import pytest
 
-from mecat_tpu.pipeline.cns import (CnsOptions, CnsStats, correct_batch,
+from mecat_jax.pipeline.cns import (CnsOptions, CnsStats, correct_batch,
                                     correct_batch_device, load_supports)
-from mecat_tpu.pipeline.pw import PwOptions, run_pw
-from mecat_tpu.io.fasta import write_fasta
-from mecat_tpu.utils.sim import random_genome, simulate_reads
+from mecat_jax.pipeline.pw import PwOptions, run_pw
+from mecat_jax.io.fasta import write_fasta
+from mecat_jax.utils.sim import random_genome, simulate_reads
 
 
 @pytest.fixture(scope="module")
@@ -65,7 +65,7 @@ def test_device_table_cap_subbatching(pile, monkeypatch):
     opts = CnsOptions(min_align_size=300, min_length=500, extend_batch=32,
                       align_segment=128, align_band=64)
     full = list(correct_batch_device(db, templates, by_t, opts, CnsStats()))
-    monkeypatch.setenv("MECAT_TPU_CNS_TABLE_BYTES", str(1 << 22))  # ~4 MB
+    monkeypatch.setenv("MECAT_CNS_TABLE_BYTES", str(1 << 22))  # ~4 MB
     sub = list(correct_batch_device(db, templates, by_t, opts, CnsStats()))
     assert {n: s.tobytes() for n, s in full} == \
         {n: s.tobytes() for n, s in sub}
@@ -74,8 +74,8 @@ def test_device_table_cap_subbatching(pile, monkeypatch):
 def test_device_support_windows_mixed_lengths(tmp_path):
     """Long supports vs short templates: the windowed device path must
     match the host path exactly (windows always cover the alignment)."""
-    from mecat_tpu.io.fasta import write_fasta
-    from mecat_tpu.io.packed_db import PackedDB
+    from mecat_jax.io.fasta import write_fasta
+    from mecat_jax.io.packed_db import PackedDB
 
     genome = random_genome(30000, seed=61)
     # short reads tile the middle; two very long reads span most of it
@@ -117,7 +117,7 @@ def test_pack_emit_cov_roundtrip(T, L, k):
     odd/even L, bit-boundary L, and every slot-count regime."""
     import jax.numpy as jnp
 
-    from mecat_tpu.ops.consensus_device import pack_emit_cov, unpack_emit_cov
+    from mecat_jax.ops.consensus_device import pack_emit_cov, unpack_emit_cov
 
     rng = np.random.default_rng(L * 31 + k)
     emit = rng.integers(-1, 5, size=(T, L, 16), dtype=np.int8)
@@ -155,7 +155,7 @@ def test_device_matches_host_window_rule(pile):
 def test_device_matches_host_rounds(pile):
     """rounds=2 iterative correction: device path equals host exactly
     (drafts, seed remap, and final vote all flow through shared code)."""
-    from mecat_tpu.pipeline.cns import correct_batch_rounds
+    from mecat_jax.pipeline.cns import correct_batch_rounds
 
     db, by_t = pile
     templates = sorted(by_t)

@@ -9,11 +9,11 @@ import os
 
 import pytest
 
-from mecat_tpu.io.fasta import write_fasta
-from mecat_tpu.parallel.cns_dist import run_cns_dist
-from mecat_tpu.pipeline.cns import CnsOptions, run_cns
-from mecat_tpu.pipeline.pw import PwOptions, run_pw
-from mecat_tpu.utils.sim import random_genome, simulate_reads
+from mecat_jax.io.fasta import write_fasta
+from mecat_jax.parallel.cns_dist import run_cns_dist
+from mecat_jax.pipeline.cns import CnsOptions, run_cns
+from mecat_jax.pipeline.pw import PwOptions, run_pw
+from mecat_jax.utils.sim import random_genome, simulate_reads
 
 CNS_OPTS = dict(min_align_size=300, min_length=500, min_mapping_ratio=0.3,
                 align_segment=128, align_band=64, extend_batch=32,
@@ -25,7 +25,7 @@ def _records(path):
 
 
 def _iter_decoded(path):
-    from mecat_tpu.io.packed_db import PackedDB
+    from mecat_jax.io.packed_db import PackedDB
     db = PackedDB.from_fasta(path)
     for i in range(db.n_reads):
         yield db.name(i), db.read(i).tobytes()
@@ -64,7 +64,7 @@ def test_dist_cns_table_cap_slices(sim, monkeypatch):
     single = str(d / "single.fasta")  # from the test above (module fixture)
     if not os.path.exists(single):
         run_cns(cand, reads, single, CnsOptions(**CNS_OPTS), db=db)
-    monkeypatch.setenv("MECAT_TPU_CNS_TABLE_BYTES", str(1 << 22))
+    monkeypatch.setenv("MECAT_CNS_TABLE_BYTES", str(1 << 22))
     dist = str(d / "dist_capped.fasta")
     run_cns_dist(cand, reads, dist, str(d / "wrk_dc"),
                  CnsOptions(**CNS_OPTS), n_data=4, db=db)

@@ -2,10 +2,10 @@
 import numpy as np
 import pytest
 
-from mecat_tpu.io.fasta import (FastaRecord, decode_bases, encode_bases,
+from mecat_jax.io.fasta import (FastaRecord, decode_bases, encode_bases,
                                 iter_fasta, write_fasta)
-from mecat_tpu.io.packed_db import (PackedDB, pack_2bit, revcomp, unpack_2bit)
-from mecat_tpu.utils.sim import random_genome, simulate_reads
+from mecat_jax.io.packed_db import (PackedDB, pack_2bit, revcomp, unpack_2bit)
+from mecat_jax.utils.sim import random_genome, simulate_reads
 
 
 def test_encode_decode_roundtrip():

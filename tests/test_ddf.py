@@ -4,18 +4,18 @@ import pytest
 
 jnp = pytest.importorskip("jax.numpy")
 
-from mecat_tpu import constants as C
-from mecat_tpu.index.kmer_index import build_index
-from mecat_tpu.io.packed_db import revcomp
-from mecat_tpu.ops.ddf import _DIAG_SHIFT, scan_candidates
-from mecat_tpu.utils.sim import random_genome, simulate_reads, true_overlap
+from mecat_jax import constants as C
+from mecat_jax.index.kmer_index import build_index
+from mecat_jax.io.packed_db import revcomp
+from mecat_jax.ops.ddf import _DIAG_SHIFT, scan_candidates
+from mecat_jax.utils.sim import random_genome, simulate_reads, true_overlap
 
 K, STRIDE, BIN = 8, 4, 128
 
 
 def brute_candidates(db, idx, q_codes, qlen, self_id, max_occ=32):
     """Reference NumPy implementation of steps 1-5 of scan_candidates."""
-    from mecat_tpu.index.kmer_index import kmer_codes_np
+    from mecat_jax.index.kmer_index import kmer_codes_np
     codes = kmer_codes_np(q_codes, K)
     scores = {}
     for qp in range(0, len(q_codes), STRIDE):

@@ -11,11 +11,11 @@ import os
 import numpy as np
 import pytest
 
-from mecat_tpu.io.fasta import write_fasta
-from mecat_tpu.io.m4 import read_m4
-from mecat_tpu.parallel.dist import run_pw_dist
-from mecat_tpu.pipeline.pw import PwOptions, run_pw
-from mecat_tpu.utils.sim import random_genome, simulate_reads
+from mecat_jax.io.fasta import write_fasta
+from mecat_jax.io.m4 import read_m4
+from mecat_jax.parallel.dist import run_pw_dist
+from mecat_jax.pipeline.pw import PwOptions, run_pw
+from mecat_jax.utils.sim import random_genome, simulate_reads
 
 
 @pytest.fixture(scope="module")
@@ -48,12 +48,12 @@ def _pairs(path):
 
 def test_dist_pw_matches_single_exactly(sim, monkeypatch):
     d, reads, db = sim
-    # the single-chip reference is the FUSED two-phase path (the TPU
+    # the single-chip reference is the FUSED two-phase path (the GPU
     # production path) — forced on the CPU backend for the test
-    monkeypatch.setenv("MECAT_TPU_FORCE_FUSED", "1")
+    monkeypatch.setenv("MECAT_FORCE_FUSED", "1")
     single_out = str(d / "single.m4")
     run_pw(reads, single_out, str(d / "wrk_s"), PwOptions(**OPTS), db=db)
-    monkeypatch.delenv("MECAT_TPU_FORCE_FUSED")
+    monkeypatch.delenv("MECAT_FORCE_FUSED")
     dist_out = str(d / "dist.m4")
     stats = run_pw_dist(reads, dist_out, str(d / "wrk_d"),
                         PwOptions(**OPTS), n_data=4, n_hash=2, db=db)

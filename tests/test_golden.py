@@ -12,7 +12,7 @@ HERE = os.path.join(os.path.dirname(__file__), "golden")
 
 
 def test_pw_m4_matches_golden():
-    from mecat_tpu.pipeline.pw import PwOptions, run_pw
+    from mecat_jax.pipeline.pw import PwOptions, run_pw
     reads = os.path.join(HERE, "reads.fasta")
     opts = PwOptions(task=1, kmer_size=9, scan_stride=4, min_align_size=400,
                      num_candidates=12, scan_batch=8, extend_batch=32,
@@ -26,7 +26,7 @@ def test_pw_m4_matches_golden():
 
 
 def test_cns_matches_golden():
-    from mecat_tpu.pipeline.cns import CnsOptions, run_cns
+    from mecat_jax.pipeline.cns import CnsOptions, run_cns
     reads = os.path.join(HERE, "reads.fasta")
     cand = os.path.join(HERE, "candidates.txt")
     with tempfile.TemporaryDirectory() as d:

@@ -5,10 +5,10 @@ import pytest
 jnp = pytest.importorskip("jax.numpy")
 import jax
 
-from mecat_tpu.index.kmer_index import (build_index, global_to_read,
+from mecat_jax.index.kmer_index import (build_index, global_to_read,
                                         kmer_codes_jnp, kmer_codes_np,
                                         probe_index)
-from mecat_tpu.utils.sim import random_genome, simulate_reads
+from mecat_jax.utils.sim import random_genome, simulate_reads
 
 
 def brute_force_table(db, k):
@@ -135,8 +135,8 @@ def test_build_index_codes_dev_identical():
     """build_index(codes_dev=...) (the run_pw single-upload path) must
     produce arrays identical to the self-uploading device build."""
     import jax.numpy as jnp
-    from mecat_tpu.index.kmer_index import build_index
-    from mecat_tpu.utils.sim import random_genome, simulate_reads
+    from mecat_jax.index.kmer_index import build_index
+    from mecat_jax.utils.sim import random_genome, simulate_reads
 
     db, _ = simulate_reads(random_genome(5000, seed=41), 16, mean_len=600,
                            min_len=200, seed=42)

@@ -1,6 +1,6 @@
 """Differential tests: native C++ data layer vs the pure-Python fallbacks.
 
-The native library (mecat_tpu/native) replaces the reference's C++ data layer
+The native library (mecat_jax/native) replaces the reference's C++ data layer
 (SURVEY.md §2.1 component 1).  Every entry point must produce byte-identical
 results to the Python implementation it shadows.
 """
@@ -12,10 +12,10 @@ import textwrap
 import numpy as np
 import pytest
 
-from mecat_tpu import native
-from mecat_tpu.io.fasta import encode_bases, format_fasta
-from mecat_tpu.io.m4 import CandidateRecord, M4Record, format_block
-from mecat_tpu.io.packed_db import PackedDB
+from mecat_jax import native
+from mecat_jax.io.fasta import encode_bases, format_fasta
+from mecat_jax.io.m4 import CandidateRecord, M4Record, format_block
+from mecat_jax.io.packed_db import PackedDB
 
 lib = native.get()
 pytestmark = pytest.mark.skipif(lib is None, reason="native lib unavailable")
@@ -33,11 +33,11 @@ def test_parse_fasta_matches_python(tmp_path):
             b">empty\n"
             b">last\nTTTT\n")
     path = _write(tmp_path, "t.fa", data)
-    os.environ["MECAT_TPU_NO_NATIVE"] = "1"
+    os.environ["MECAT_NO_NATIVE"] = "1"
     try:
         py = PackedDB.from_fasta(path)
     finally:
-        del os.environ["MECAT_TPU_NO_NATIVE"]
+        del os.environ["MECAT_NO_NATIVE"]
     nat = PackedDB.from_fasta(path)
     assert nat.names == py.names
     assert np.array_equal(nat.codes, py.codes)
@@ -50,11 +50,11 @@ def test_parse_fastq_matches_python(tmp_path):
     data = (b"@q1 desc\nACGTN\n+\nIIIII\n"
             b"@q2\nGGCC\n+ q2\n!!!!\n")
     path = _write(tmp_path, "t.fq", data)
-    os.environ["MECAT_TPU_NO_NATIVE"] = "1"
+    os.environ["MECAT_NO_NATIVE"] = "1"
     try:
         py = PackedDB.from_fasta(path)
     finally:
-        del os.environ["MECAT_TPU_NO_NATIVE"]
+        del os.environ["MECAT_NO_NATIVE"]
     nat = PackedDB.from_fasta(path)
     assert nat.names == py.names == ["q1", "q2"]
     assert np.array_equal(nat.codes, py.codes)
@@ -85,11 +85,11 @@ def test_padded_batch_matches_python():
     db = PackedDB(codes, starts, lens, [str(i) for i in range(20)])
     ids = [5, 0, 19, 7, 7]
     nat_b, nat_l = db.padded_batch(ids, pad_to=128)
-    os.environ["MECAT_TPU_NO_NATIVE"] = "1"
+    os.environ["MECAT_NO_NATIVE"] = "1"
     try:
         py_b, py_l = db.padded_batch(ids, pad_to=128)
     finally:
-        del os.environ["MECAT_TPU_NO_NATIVE"]
+        del os.environ["MECAT_NO_NATIVE"]
     assert np.array_equal(nat_b, py_b)
     assert np.array_equal(nat_l, py_l)
 

@@ -23,10 +23,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 
 from pile_harness import build_pile, run_pile  # noqa: E402
 
-from mecat_tpu import constants as C
-from mecat_tpu.pipeline.cns import CnsOptions
-from mecat_tpu.utils.accuracy import edit_stats, identity_pct
-from mecat_tpu.utils.sim import random_genome
+from mecat_jax import constants as C
+from mecat_jax.pipeline.cns import CnsOptions
+from mecat_jax.utils.accuracy import edit_stats, identity_pct
+from mecat_jax.utils.sim import random_genome
 
 
 def _ont_opts(rounds: int) -> CnsOptions:

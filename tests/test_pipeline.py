@@ -4,10 +4,10 @@ import os
 import numpy as np
 import pytest
 
-from mecat_tpu.cli.extract_sequences import extract
-from mecat_tpu.io.fasta import iter_fasta, write_fasta
-from mecat_tpu.pipeline.trim import coverage_intervals
-from mecat_tpu.utils.sim import random_genome, simulate_reads
+from mecat_jax.cli.extract_sequences import extract
+from mecat_jax.io.fasta import iter_fasta, write_fasta
+from mecat_jax.pipeline.trim import coverage_intervals
+from mecat_jax.utils.sim import random_genome, simulate_reads
 
 PIPE_ARGS = ["-g", "8000", "-c", "20", "-a", "500", "-n", "20",
              "--min-coverage", "3", "--min-length", "500",
@@ -46,7 +46,7 @@ def test_pipeline_e2e(tmp_path):
     reads = str(tmp_path / "raw.fasta")
     write_fasta(reads, [(db.name(i), db.read(i)) for i in range(db.n_reads)])
 
-    from mecat_tpu.cli.pipeline import main
+    from mecat_jax.cli.pipeline import main
     out = str(tmp_path / "out")
     rc = main(["-d", reads, "-o", out] + PIPE_ARGS)
     assert rc == 0
@@ -78,7 +78,7 @@ def test_pipeline_e2e_nanopore_rounds2(tmp_path):
     pipeline CLI on nanopore-profile reads (VERDICT r4 weak #4: an
     ONT-specific e2e wiring regression — preset plumbing, rounds draft
     mapping — previously passed every test)."""
-    from mecat_tpu.utils.sim import PROFILE_NANOPORE
+    from mecat_jax.utils.sim import PROFILE_NANOPORE
 
     genome = random_genome(8000, seed=131)
     db, _ = simulate_reads(genome, 70, mean_len=2500, min_len=1500,
@@ -87,7 +87,7 @@ def test_pipeline_e2e_nanopore_rounds2(tmp_path):
     reads = str(tmp_path / "ont.fasta")
     write_fasta(reads, [(db.name(i), db.read(i)) for i in range(db.n_reads)])
 
-    from mecat_tpu.cli.pipeline import main
+    from mecat_jax.cli.pipeline import main
     out = str(tmp_path / "ont_out")
     args = ["-d", reads, "-o", out, "-x", "1", "--rounds", "2",
             "-g", "8000", "-c", "20", "-n", "20",

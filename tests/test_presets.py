@@ -9,11 +9,11 @@ import pytest
 
 jnp = pytest.importorskip("jax.numpy")
 
-from mecat_tpu import constants as C
-from mecat_tpu.io.fasta import write_fasta
-from mecat_tpu.pipeline.cns import CnsOptions, run_cns
-from mecat_tpu.pipeline.pw import PwOptions, run_pw
-from mecat_tpu.utils.sim import (PROFILE_NANOPORE, random_genome,
+from mecat_jax import constants as C
+from mecat_jax.io.fasta import write_fasta
+from mecat_jax.pipeline.cns import CnsOptions, run_cns
+from mecat_jax.pipeline.pw import PwOptions, run_pw
+from mecat_jax.utils.sim import (PROFILE_NANOPORE, random_genome,
                                  simulate_reads)
 
 
@@ -43,7 +43,7 @@ def test_for_tech_overrides_and_none():
 
 def test_cli_defaults_follow_tech():
     """mecat2cns CLI: unset -r/-a/-c/-l follow -x; explicit flags win."""
-    from mecat_tpu.cli.mecat2cns import build_parser
+    from mecat_jax.cli.mecat2cns import build_parser
 
     args = build_parser().parse_args(["-x", "1", "in.txt", "r.fa", "o.fa"])
     o = CnsOptions.for_tech(
@@ -86,7 +86,7 @@ def test_nanopore_e2e_config4_shape(tmp_path):
 def test_meryl_cutoff_changes_probe_masking():
     """An absolute index cutoff (meryl role) must mask frequent k-mers at
     probe time (SURVEY.md §2.2 row 9 'Done' gate)."""
-    from mecat_tpu.index.kmer_index import build_index, probe_index
+    from mecat_jax.index.kmer_index import build_index, probe_index
 
     db, _ = simulate_reads(random_genome(4000, seed=31), 12, mean_len=400,
                            min_len=100, seed=32)
@@ -98,7 +98,7 @@ def test_meryl_cutoff_changes_probe_masking():
     assert idx_lo.max_occ_cutoff == 1
     assert idx_hi.max_occ_cutoff == 10**6
     # probe every k-mer code of read 0 against both cutoffs
-    from mecat_tpu.index.kmer_index import kmer_codes_np
+    from mecat_jax.index.kmer_index import kmer_codes_np
     r = db.read(0)
     codes = kmer_codes_np(r, k)[: len(r) - k + 1][None, :]
     valid_in = np.ones_like(codes, dtype=bool)
@@ -118,7 +118,7 @@ def test_meryl_cutoff_changes_probe_masking():
 
 def test_assembly_driver_consumes_meryl(tmp_path):
     """run_assembly must feed the meryl cutoff into the overlap stages."""
-    from mecat_tpu.assembly.driver import AsmOptions, run_assembly
+    from mecat_jax.assembly.driver import AsmOptions, run_assembly
 
     genome = random_genome(6000, seed=91)
     db, _ = simulate_reads(genome, 50, mean_len=2000, min_len=1200, seed=92,
@@ -141,9 +141,9 @@ def test_assembly_driver_consumes_meryl(tmp_path):
 def test_vote_params_per_tech():
     """-x drives the pooled vote rules, and host/device agree under a
     non-default VoteParams."""
-    from mecat_tpu.ops.consensus import (VoteParams, _run_pooled_deletions,
+    from mecat_jax.ops.consensus import (VoteParams, _run_pooled_deletions,
                                          default_vote_params)
-    from mecat_tpu.ops.consensus_device import _run_pooled_deletions_dev
+    from mecat_jax.ops.consensus_device import _run_pooled_deletions_dev
 
     nano = CnsOptions.for_tech(C.TECH_NANOPORE).vote_params()
     pac = CnsOptions.for_tech(C.TECH_PACBIO).vote_params()
@@ -159,7 +159,7 @@ def test_vote_params_per_tech():
     template[20:28] = 1                               # CCCCCCCC run
     counts = np.zeros((L, 1, 5), np.int32)
     counts[np.arange(L), 0, template] = 9             # matches everywhere
-    from mecat_tpu.ops.consensus import GAP
+    from mecat_jax.ops.consensus import GAP
     counts[20:28, 0, GAP] = 4                         # split deletion votes
     counts[20:28, 0, 1] -= 4
     coverage = np.full(L, 9, np.int32)

@@ -2,11 +2,11 @@
 import numpy as np
 import pytest
 
-from mecat_tpu.io.m4 import (CandidateRecord, M4Record, read_candidates,
+from mecat_jax.io.m4 import (CandidateRecord, M4Record, read_candidates,
                              read_m4)
-from mecat_tpu.io.fasta import write_fasta
-from mecat_tpu.pipeline.pw import PwOptions, run_pw
-from mecat_tpu.utils.sim import random_genome, simulate_reads, true_overlap
+from mecat_jax.io.fasta import write_fasta
+from mecat_jax.pipeline.pw import PwOptions, run_pw
+from mecat_jax.utils.sim import random_genome, simulate_reads, true_overlap
 
 OPTS = dict(num_candidates=20, min_align_size=500, kmer_size=8,
             scan_stride=4, scan_batch=16, extend_batch=64,
@@ -100,7 +100,7 @@ def test_pw_multivolume(sim_setup):
 
 def test_cli(sim_setup):
     tmp, reads, db, truths = sim_setup
-    from mecat_tpu.cli.mecat2pw import main
+    from mecat_jax.cli.mecat2pw import main
     out = str(tmp / "cli.m4")
     rc = main(["-j", "1", "-d", reads, "-o", out, "-w", str(tmp / "w5"),
                "-t", "2", "-n", "20", "-a", "500", "--kmer-size", "8",
@@ -126,11 +126,11 @@ def test_pw_resume_skips_completed_shards(sim_setup):
 
 
 def test_fused_batch_path_matches_staged(sim_setup):
-    """The fused device batch path (TPU default) vs the staged host path:
+    """The fused device batch path (GPU default) vs the staged host path:
     fused recovers ~everything staged finds (superset semantics, like the
     dist driver: top-n per strand vs per read)."""
-    import mecat_tpu.pipeline.pw as pwmod
-    from mecat_tpu.index.kmer_index import build_index
+    import mecat_jax.pipeline.pw as pwmod
+    from mecat_jax.index.kmer_index import build_index
     import jax.numpy as jnp
 
     tmp, reads, db, truths = sim_setup
@@ -138,7 +138,7 @@ def test_fused_batch_path_matches_staged(sim_setup):
     idx = build_index(db.codes, db.starts, db.lengths, k=opts.kmer_size)
     dev = idx.as_device_arrays()
     dev["vol_codes"] = jnp.asarray(db.codes)
-    from mecat_tpu.pipeline.common import bucket_length
+    from mecat_jax.pipeline.common import bucket_length
     L = bucket_length(int(db.lengths.max()))
     qids = list(range(min(db.n_reads, opts.scan_batch)))
     staged, _ = pwmod.process_query_batch(
@@ -183,11 +183,11 @@ def test_device_gather_byte_identical(sim_setup, monkeypatch):
     def both(task, force_fused):
         outs = []
         for dev_gather in ("0", "1"):
-            monkeypatch.setenv("MECAT_TPU_PW_DEV_GATHER", dev_gather)
+            monkeypatch.setenv("MECAT_PW_DEV_GATHER", dev_gather)
             if force_fused:
-                monkeypatch.setenv("MECAT_TPU_FORCE_FUSED", "1")
+                monkeypatch.setenv("MECAT_FORCE_FUSED", "1")
             else:
-                monkeypatch.delenv("MECAT_TPU_FORCE_FUSED", raising=False)
+                monkeypatch.delenv("MECAT_FORCE_FUSED", raising=False)
             out = str(tmp / f"dg{task}_{dev_gather}.txt")
             run_pw(reads, out, str(tmp / f"wdg{task}_{dev_gather}"),
                    PwOptions(task=task, **OPTS))
@@ -207,8 +207,8 @@ def test_device_gather_multivolume_byte_identical(sim_setup, monkeypatch):
     tmp, reads, db, truths = sim_setup
     outs = []
     for dev_gather in ("0", "1"):
-        monkeypatch.setenv("MECAT_TPU_PW_DEV_GATHER", dev_gather)
-        monkeypatch.setenv("MECAT_TPU_FORCE_FUSED", "1")
+        monkeypatch.setenv("MECAT_PW_DEV_GATHER", dev_gather)
+        monkeypatch.setenv("MECAT_FORCE_FUSED", "1")
         out = str(tmp / f"mv{dev_gather}.m4")
         run_pw(reads, out, str(tmp / f"wmv{dev_gather}"),
                PwOptions(task=1, volume_bases=20000, **OPTS))
@@ -224,7 +224,7 @@ def test_grouped_pulls_many_batches_byte_identical(sim_setup, monkeypatch):
     outs = []
     small = dict(OPTS, scan_batch=2)       # 24 reads -> 12 pending batches
     for dev_gather in ("0", "1"):
-        monkeypatch.setenv("MECAT_TPU_PW_DEV_GATHER", dev_gather)
+        monkeypatch.setenv("MECAT_PW_DEV_GATHER", dev_gather)
         out = str(tmp / f"grp{dev_gather}.txt")
         run_pw(reads, out, str(tmp / f"wgrp{dev_gather}"),
                PwOptions(task=0, **small))

@@ -6,12 +6,12 @@ import pytest
 
 jnp = pytest.importorskip("jax.numpy")
 
-from mecat_tpu.io.fasta import decode_bases, write_fasta
-from mecat_tpu.io.m4 import read_m4
-from mecat_tpu.io.sam import cigar_from_ops
-from mecat_tpu.ops.align import MOVE_HORIZ, MOVE_MATCH, MOVE_MISMATCH, MOVE_VERT
-from mecat_tpu.pipeline.ref import RefOptions, run_ref
-from mecat_tpu.utils.sim import random_genome, simulate_reads
+from mecat_jax.io.fasta import decode_bases, write_fasta
+from mecat_jax.io.m4 import read_m4
+from mecat_jax.io.sam import cigar_from_ops
+from mecat_jax.ops.align import MOVE_HORIZ, MOVE_MATCH, MOVE_MISMATCH, MOVE_VERT
+from mecat_jax.pipeline.ref import RefOptions, run_ref
+from mecat_jax.utils.sim import random_genome, simulate_reads
 
 OPTS = dict(num_candidates=8, num_extend=3, min_align_size=400,
             kmer_size=10, scan_stride=5, scan_batch=16, extend_batch=32,
@@ -119,7 +119,7 @@ def test_ref_m4(ref_setup):
 
 def test_ref_cli(ref_setup):
     tmp, reads, ref, names, seqs, genomes = ref_setup
-    from mecat_tpu.cli.mecat2ref import main
+    from mecat_jax.cli.mecat2ref import main
     out = str(tmp / "cli.sam")
     rc = main(["-d", reads, "-r", ref, "-w", str(tmp / "w3"), "-o", out,
                "-x", "1", "-a", "400", "--kmer-size", "10",
@@ -171,9 +171,9 @@ def test_ref_topk_secondary_and_mapq(tmp_path):
 def _synthetic_scan(big_off, k=10, stride=5, L=2000, seed=7):
     """Scan one read against a fabricated CSR index whose occurrences sit at
     genome offset ``big_off`` (no giant array needed — the CSR is sparse)."""
-    from mecat_tpu.index.kmer_index import kmer_codes_np
-    from mecat_tpu.ops.ddf import scan_candidates
-    from mecat_tpu.pipeline.ref import GENOME_DIAG_SHIFT
+    from mecat_jax.index.kmer_index import kmer_codes_np
+    from mecat_jax.ops.ddf import scan_candidates
+    from mecat_jax.pipeline.ref import GENOME_DIAG_SHIFT
 
     rng = np.random.default_rng(seed)
     read = rng.integers(0, 4, L).astype(np.uint8)
@@ -256,9 +256,9 @@ def test_ref_sam_m4_coordinates_agree(ref_setup):
 def test_ref_device_gather_byte_identical(tmp_path, monkeypatch):
     """The device-resident query gather (common.device_query_volume) must
     leave mecat2ref output byte-identical to the host oriented_batch path."""
-    from mecat_tpu.pipeline.ref import RefOptions, run_ref
-    from mecat_tpu.io.fasta import write_fasta
-    from mecat_tpu.utils.sim import random_genome, simulate_reads
+    from mecat_jax.pipeline.ref import RefOptions, run_ref
+    from mecat_jax.io.fasta import write_fasta
+    from mecat_jax.utils.sim import random_genome, simulate_reads
     import numpy as np
 
     genome = random_genome(20000, seed=71)
@@ -270,7 +270,7 @@ def test_ref_device_gather_byte_identical(tmp_path, monkeypatch):
     write_fasta(ref, [("g", genome)])
     outs = []
     for dev_gather in ("0", "1"):
-        monkeypatch.setenv("MECAT_TPU_PW_DEV_GATHER", dev_gather)
+        monkeypatch.setenv("MECAT_PW_DEV_GATHER", dev_gather)
         out = str(tmp_path / f"out{dev_gather}.sam")
         run_ref(reads, ref, out, str(tmp_path / f"w{dev_gather}"),
                 RefOptions(output_format="sam", **OPTS))

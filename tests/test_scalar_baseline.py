@@ -17,8 +17,8 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from mecat_tpu import constants as C
-from mecat_tpu.utils.sim import random_genome, simulate_reads
+from mecat_jax import constants as C
+from mecat_jax.utils.sim import random_genome, simulate_reads
 
 
 @pytest.fixture(scope="module")
@@ -26,7 +26,7 @@ def workload():
     g = random_genome(40000, seed=17)
     db, _ = simulate_reads(g, 48, mean_len=1800, min_len=1000, seed=18,
                            error_rate=0.1)
-    from mecat_tpu.native.scalar import ScalarEngine
+    from mecat_jax.native.scalar import ScalarEngine
 
     eng = ScalarEngine(db.codes, db.starts, db.lengths, k=13)
     return g, db, eng
@@ -38,7 +38,7 @@ SCAN = dict(stride=10, max_occ=16, diag_bin=256, n_cand=12)
 def test_scalar_index_matches_kmer_index(workload):
     """CSR offsets + (rid, loc) occurrence arrays equal index/kmer_index."""
     _, db, eng = workload
-    from mecat_tpu.index.kmer_index import build_index
+    from mecat_jax.index.kmer_index import build_index
 
     idx = build_index(db.codes, db.starts, db.lengths, k=13)
     # the engine keeps its arrays internal; probe equality via the scan on
@@ -52,8 +52,8 @@ def test_scalar_scan_matches_jax(workload):
     """Candidates (target, score, qseed, tseed) equal scan_candidates."""
     import jax.numpy as jnp
 
-    from mecat_tpu.index.kmer_index import build_index
-    from mecat_tpu.ops.ddf import scan_candidates
+    from mecat_jax.index.kmer_index import build_index
+    from mecat_jax.ops.ddf import scan_candidates
 
     _, db, eng = workload
     idx = build_index(db.codes, db.starts, db.lengths, k=13)
@@ -93,8 +93,8 @@ def test_scalar_extend_matches_jax(workload):
     """Extension integer fields bit-equal extend_pair_batch on real pairs."""
     import jax.numpy as jnp
 
-    from mecat_tpu.index.kmer_index import build_index
-    from mecat_tpu.ops.align import extend_pair_batch
+    from mecat_jax.index.kmer_index import build_index
+    from mecat_jax.ops.align import extend_pair_batch
 
     _, db, eng = workload
     idx = build_index(db.codes, db.starts, db.lengths, k=13)
@@ -153,7 +153,7 @@ def test_scalar_overlap_range_consistent(workload):
         min_seg_identity=C.MIN_SEGMENT_IDENTITY, min_identity=65.0,
         min_align_size=300)
     # candidate total == sum over reads of merged-strand top-n
-    from mecat_tpu.io.packed_db import revcomp
+    from mecat_jax.io.packed_db import revcomp
 
     total = 0
     for q in range(db.n_reads):

@@ -3,7 +3,7 @@ import json
 
 
 def test_scaling_report_shapes():
-    from mecat_tpu.utils.scaling import scaling_report
+    from mecat_jax.utils.scaling import scaling_report
 
     lines = []
     rows = scaling_report(mesh_shapes=[(1, 1), (2, 1), (2, 2)], batch=8,

@@ -5,13 +5,13 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
-from mecat_tpu.index.kmer_index import build_index
-from mecat_tpu.ops.ddf import scan_candidates
-from mecat_tpu.parallel.sharded import (make_mesh, place_sharded_inputs,
+from mecat_jax.index.kmer_index import build_index
+from mecat_jax.ops.ddf import scan_candidates
+from mecat_jax.parallel.sharded import (make_mesh, place_sharded_inputs,
                                         shard_index_by_hash,
                                         sharded_overlap_step)
-from mecat_tpu.pipeline.device_step import overlap_step
-from mecat_tpu.utils.sim import random_genome, simulate_reads
+from mecat_jax.pipeline.device_step import overlap_step
+from mecat_jax.utils.sim import random_genome, simulate_reads
 
 K = 7
 CFG = dict(k=K, stride=4, max_occ=16, num_candidates=8, diag_bin=128,

@@ -3,10 +3,10 @@
 Answers "where do the ~25 s/slice go at E. coli scale?" (round-3 perf
 pass): loads the staged pw artifacts (reads.fasta + cand.txt), picks a
 subset of templates, and runs correct_batch_device with
-MECAT_TPU_CNS_TIMERS=1 so each slice logs plan / dispatch+align / vote /
+MECAT_CNS_TIMERS=1 so each slice logs plan / dispatch+align / vote /
 pull phases separately.  Run on the real chip.
 
-Usage: python tools/cns_profile.py [--dir /tmp/ecoli_e2e] [--templates 200]
+Usage: python tools/cns_profile.py [--dir .artifacts/ecoli_e2e] [--templates 200]
        [--offset 2000] [--tech 0] [--extend-batch 128]
 """
 import argparse
@@ -17,14 +17,14 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-os.environ.setdefault("MECAT_TPU_CNS_TIMERS", "1")
+os.environ.setdefault("MECAT_CNS_TIMERS", "1")
 
 import numpy as np  # noqa: E402
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--dir", default="/tmp/ecoli_e2e")
+    ap.add_argument("--dir", default=".artifacts/ecoli_e2e")
     ap.add_argument("--templates", type=int, default=200)
     ap.add_argument("--offset", type=int, default=2000,
                     help="skip the shortest templates (slice plan sorts by "
@@ -33,8 +33,8 @@ def main(argv=None):
     ap.add_argument("--extend-batch", type=int, default=128)
     args = ap.parse_args(argv)
 
-    from mecat_tpu.io.packed_db import PackedDB
-    from mecat_tpu.pipeline.cns import (CnsOptions, CnsStats,
+    from mecat_jax.io.packed_db import PackedDB
+    from mecat_jax.pipeline.cns import (CnsOptions, CnsStats,
                                         correct_batch_device, load_supports)
 
     t0 = time.time()

@@ -51,12 +51,12 @@ def main():
     jax.config.update("jax_platforms", "cpu")
 
     from tools.pile_harness import _seed_pair
-    from mecat_tpu.utils.sim import random_genome, mutate, PROFILE_NANOPORE
-    from mecat_tpu.io.packed_db import PackedDB
-    from mecat_tpu.io.fasta import FastaRecord
-    from mecat_tpu.pipeline.cns import CnsOptions, CnsStats, correct_batch
-    from mecat_tpu import constants as Cst
-    from mecat_tpu.ops import consensus as cons
+    from mecat_jax.utils.sim import random_genome, mutate, PROFILE_NANOPORE
+    from mecat_jax.io.packed_db import PackedDB
+    from mecat_jax.io.fasta import FastaRecord
+    from mecat_jax.pipeline.cns import CnsOptions, CnsStats, correct_batch
+    from mecat_jax import constants as Cst
+    from mecat_jax.ops import consensus as cons
 
     rng = np.random.default_rng(args.seed)
     truth = random_genome(args.length, seed=1234)

@@ -12,9 +12,9 @@ reads, tens of thousands of overlaps) and asserts exact record equality:
   cns: run_cns_dist (2 x 4) == single-driver run_cns, corrected FASTA
        record-for-record (support table subset bounded for 1-core wall).
 
-Writes evidence JSON to --out.  Wall is hours on this 1-core sandbox —
-it is a correctness run, not a perf run (the mesh "devices" all share one
-host core).
+Writes evidence JSON to --out.  On virtual CPU devices the wall is hours
+— it is a correctness run, not a perf run (the mesh "devices" share the
+host's cores).
 
 Usage: python tools/dist_e2e.py [--dir .artifacts/dist_e2e]
        [--genome 1500000] [--cov 15] [--stage pw|cns|all]
@@ -38,14 +38,14 @@ CNS_TEMPLATE_CAP = 768          # reads whose piles enter the cns legs
 
 
 def _pw_options():
-    from mecat_tpu.pipeline.pw import PwOptions
+    from mecat_jax.pipeline.pw import PwOptions
 
     return PwOptions(**PW_OPTS)
 
 
 def _cns_options():
-    from mecat_tpu import constants as C
-    from mecat_tpu.pipeline.cns import CnsOptions
+    from mecat_jax import constants as C
+    from mecat_jax.pipeline.cns import CnsOptions
 
     return CnsOptions.for_tech(C.TECH_PACBIO, **CNS_OPTS)
 
@@ -56,7 +56,7 @@ def _m4_records(path):
 
 
 def _fasta_records(path):
-    from mecat_tpu.io.fasta import iter_fasta
+    from mecat_jax.io.fasta import iter_fasta
 
     return sorted((r.name, r.codes.tobytes()) for r in iter_fasta(path))
 
@@ -68,7 +68,7 @@ def worker(args):
     os.environ["JAX_PROCESS_ID"] = str(args.pid)
     d = args.dir
     if args.worker == "pw":
-        from mecat_tpu.parallel.dist import run_pw_dist
+        from mecat_jax.parallel.dist import run_pw_dist
 
         stats = run_pw_dist(os.path.join(d, "reads.fasta"),
                             os.path.join(d, "dist_mp.m4"),
@@ -76,7 +76,7 @@ def worker(args):
                             n_data=4, n_hash=2)
         print(f"worker {args.pid}: {stats.overlaps} overlaps", flush=True)
     else:
-        from mecat_tpu.parallel.cns_dist import run_cns_dist
+        from mecat_jax.parallel.cns_dist import run_cns_dist
 
         stats = run_cns_dist(os.path.join(d, "cand_sub.txt"),
                              os.path.join(d, "reads.fasta"),
@@ -92,7 +92,7 @@ def spawn_workers(mode, d, nproc=2):
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    env = dict(os.environ, MECAT_TPU_PLATFORM="cpu",
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     env.pop("PYTHONPATH", None)
     procs = [subprocess.Popen(
@@ -113,7 +113,7 @@ def main(argv=None):
     ap.add_argument("--cov", type=float, default=15.0)
     ap.add_argument("--mean-len", type=int, default=5000)
     ap.add_argument("--stage", default="all", choices=("pw", "cns", "all"))
-    ap.add_argument("--out", default="evidence/round5/dist_e2e.json")
+    ap.add_argument("--out", default=".artifacts/dist_e2e/summary.json")
     # worker plumbing
     ap.add_argument("--worker", choices=("pw", "cns"))
     ap.add_argument("--port", type=int)
@@ -123,7 +123,7 @@ def main(argv=None):
     if args.worker:
         return worker(args)
 
-    os.environ.setdefault("MECAT_TPU_PLATFORM", "cpu")
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
     flags = os.environ.get("XLA_FLAGS", "")
     if "host_platform_device_count" not in flags:
         os.environ["XLA_FLAGS"] = (
@@ -135,8 +135,8 @@ def main(argv=None):
 
     import numpy as np
 
-    from mecat_tpu.io.fasta import write_fasta
-    from mecat_tpu.utils.sim import random_genome, simulate_reads
+    from mecat_jax.io.fasta import write_fasta
+    from mecat_jax.utils.sim import random_genome, simulate_reads
 
     n_reads = int(args.genome * args.cov / args.mean_len)
     genome = random_genome(args.genome, seed=301)
@@ -153,14 +153,14 @@ def main(argv=None):
     if args.stage in ("pw", "all"):
         single = os.path.join(d, "single.m4")
         if not os.path.exists(single):
-            os.environ["MECAT_TPU_FORCE_FUSED"] = "1"
-            from mecat_tpu.pipeline.pw import run_pw
+            os.environ["MECAT_FORCE_FUSED"] = "1"
+            from mecat_jax.pipeline.pw import run_pw
 
             t0 = time.time()
             run_pw(reads, single, os.path.join(d, "wrk_single"),
                    _pw_options(), db=db)
             summary["pw_single_s"] = round(time.time() - t0, 1)
-            del os.environ["MECAT_TPU_FORCE_FUSED"]
+            del os.environ["MECAT_FORCE_FUSED"]
         t0 = time.time()
         spawn_workers("pw", d)
         summary["pw_dist_s"] = round(time.time() - t0, 1)
@@ -178,7 +178,7 @@ def main(argv=None):
         # first CNS_TEMPLATE_CAP reads' piles (1-core wall bound)
         cand = os.path.join(d, "cand.txt")
         if not os.path.exists(cand):
-            from mecat_tpu.pipeline.pw import PwOptions, run_pw
+            from mecat_jax.pipeline.pw import PwOptions, run_pw
 
             opts0 = PwOptions(**{**PW_OPTS, "task": 0})
             t0 = time.time()
@@ -194,7 +194,7 @@ def main(argv=None):
                         fo.write(ln)
         single_f = os.path.join(d, "single.fasta")
         if not os.path.exists(single_f):
-            from mecat_tpu.pipeline.cns import run_cns
+            from mecat_jax.pipeline.cns import run_cns
 
             t0 = time.time()
             run_cns(cand_sub, reads, single_f, _cns_options(), db=db)

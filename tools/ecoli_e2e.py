@@ -7,7 +7,7 @@ durable artifacts (reruns skip finished stages), scores corrected reads
 against the truth genome with the exact banded toolkit
 (utils/accuracy.corrected_accuracy), and writes one JSON summary.
 
-Usage:  python tools/ecoli_e2e.py [--dir /tmp/ecoli_e2e] [--reads 9216]
+Usage:  python tools/ecoli_e2e.py [--dir .artifacts/ecoli_e2e] [--reads 9216]
         [--genome 4600000] [--skip-pw] [--tech 0|1] [--err 0.12]
 Stages are resumable: an existing cand.txt / corrected.fasta is reused.
 """
@@ -24,6 +24,8 @@ import numpy as np  # noqa: E402
 
 
 def sh(cmd):
+    """Run one CLI stage in a child process.  This parent never touches the
+    device (one JAX process per card): it only simulates and scores."""
     print("+", " ".join(cmd), flush=True)
     t0 = time.time()
     subprocess.run(cmd, check=True)
@@ -32,7 +34,7 @@ def sh(cmd):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--dir", default="/tmp/ecoli_e2e")
+    ap.add_argument("--dir", default=".artifacts/ecoli_e2e")
     ap.add_argument("--reads", type=int, default=9216)
     ap.add_argument("--genome", type=int, default=4_600_000)
     ap.add_argument("--err", type=float, default=0.12)
@@ -48,8 +50,8 @@ def main(argv=None):
 
     d = args.dir
     os.makedirs(d, exist_ok=True)
-    from mecat_tpu.io.fasta import write_fasta
-    from mecat_tpu.utils.sim import random_genome, simulate_reads
+    from mecat_jax.io.fasta import write_fasta
+    from mecat_jax.utils.sim import random_genome, simulate_reads
 
     t_all = time.time()
     genome = random_genome(args.genome, seed=101)
@@ -70,7 +72,7 @@ def main(argv=None):
     cand = os.path.join(d, "cand.txt")
     if not os.path.exists(cand):
         summary["pw_seconds"] = round(sh(
-            py + ["mecat_tpu.cli.mecat2pw", "-j", "0", "-d", reads,
+            py + ["mecat_jax.cli.mecat2pw", "-j", "0", "-d", reads,
                   "-o", cand, "-w", os.path.join(d, "wrk_pw"),
                   "-n", str(args.ncand)]), 1)
     n_cand = sum(1 for _ in open(cand, "rb"))
@@ -84,12 +86,12 @@ def main(argv=None):
         extra = ([] if args.draft_est_coverage is None else
                  ["--draft-est-coverage", str(args.draft_est_coverage)])
         summary["cns_seconds"] = round(sh(
-            py + ["mecat_tpu.cli.mecat2cns", "-i", "0", "-x", str(args.tech),
+            py + ["mecat_jax.cli.mecat2cns", "-i", "0", "-x", str(args.tech),
                   "--rounds", str(args.rounds)] + extra
             + [cand, reads, corrected]), 1)
     summary["rounds"] = args.rounds
 
-    from mecat_tpu.utils.accuracy import corrected_accuracy
+    from mecat_jax.utils.accuracy import corrected_accuracy
     t0 = time.time()
     rep = corrected_accuracy(corrected, genome, truths,
                              max_reads=args.max_score)

@@ -33,8 +33,8 @@ def main(argv=None):
     ap.add_argument("--err", type=float, default=0.14)
     args = ap.parse_args(argv)
 
-    from mecat_tpu.utils.accuracy import corrected_accuracy
-    from mecat_tpu.utils.sim import (PROFILE_NANOPORE, random_genome,
+    from mecat_jax.utils.accuracy import corrected_accuracy
+    from mecat_jax.utils.sim import (PROFILE_NANOPORE, random_genome,
                                      simulate_reads)
 
     pipe = os.path.join(args.dir, "pipe" if args.rounds <= 1

@@ -6,7 +6,7 @@ Simulates nanopore-profile reads from a yeast-sized genome, runs the real
 stage resumability, and scores the corrected reads against the truth with
 the exact banded toolkit.  One JSON summary at the end.
 
-Usage: python tools/ont_e2e.py [--dir /tmp/ont_e2e] [--genome 12100000]
+Usage: python tools/ont_e2e.py [--dir .artifacts/ont_e2e] [--genome 12100000]
        [--cov 15] [--err 0.14] [--reads N]
 """
 import argparse
@@ -22,6 +22,8 @@ import numpy as np  # noqa: E402
 
 
 def sh(cmd):
+    """Run one CLI stage in a child process.  This parent never touches the
+    device (one JAX process per card): it only simulates and scores."""
     print("+", " ".join(cmd), flush=True)
     t0 = time.time()
     subprocess.run(cmd, check=True)
@@ -30,7 +32,7 @@ def sh(cmd):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--dir", default="/tmp/ont_e2e")
+    ap.add_argument("--dir", default=".artifacts/ont_e2e")
     ap.add_argument("--genome", type=int, default=12_100_000)
     ap.add_argument("--cov", type=float, default=15.0)
     ap.add_argument("--mean-len", type=int, default=8000)
@@ -47,8 +49,8 @@ def main(argv=None):
 
     d = args.dir
     os.makedirs(d, exist_ok=True)
-    from mecat_tpu.io.fasta import write_fasta
-    from mecat_tpu.utils.sim import (PROFILE_NANOPORE, random_genome,
+    from mecat_jax.io.fasta import write_fasta
+    from mecat_jax.utils.sim import (PROFILE_NANOPORE, random_genome,
                                      simulate_reads)
 
     t_all = time.time()
@@ -82,7 +84,7 @@ def main(argv=None):
     extra = ([] if args.draft_est_coverage is None else
              ["--draft-est-coverage", str(args.draft_est_coverage)])
     t0 = time.time()
-    sh([sys.executable, "-m", "mecat_tpu.cli.pipeline",
+    sh([sys.executable, "-m", "mecat_jax.cli.pipeline",
         "-d", reads, "-o", out_dir, "-x", "1",
         "-g", str(args.genome), "-n", str(args.ncand),
         "--rounds", str(args.rounds)] + extra)
@@ -92,7 +94,7 @@ def main(argv=None):
         p = os.path.join(out_dir, name)
         summary[name] = os.path.getsize(p) if os.path.exists(p) else None
 
-    from mecat_tpu.utils.accuracy import corrected_accuracy
+    from mecat_jax.utils.accuracy import corrected_accuracy
     t0 = time.time()
     rep = corrected_accuracy(os.path.join(out_dir, "corrected.fasta"),
                              genome, truths, max_reads=args.max_score)

@@ -11,8 +11,8 @@ class.
 
 Usage:  python tools/pile_harness.py [--piles 8] [--cov 20] [--err 0.12]
         [--len 12000] [--profile pacbio|nanopore] [--seed 1]
-Sweeps: any MECAT_TPU_CNS_* env var is picked up by ops/consensus.py as
-usual, so `MECAT_TPU_CNS_DEL_BIAS=0.4 python tools/pile_harness.py` is a
+Sweeps: any MECAT_CNS_* env var is picked up by ops/consensus.py as
+usual, so `MECAT_CNS_DEL_BIAS=0.4 python tools/pile_harness.py` is a
 one-line experiment.
 """
 import argparse
@@ -58,7 +58,7 @@ def build_pile(rng, truth, cov, err, profile, min_frac=0.35):
     exact shared k-mers (what the k-mer index would produce): raw
     coordinate pairs drift by the net indel rate and would defeat the
     banded extension, just as unseeded alignment would in the pipeline."""
-    from mecat_tpu.utils.sim import mutate, PROFILE_PACBIO, PROFILE_NANOPORE
+    from mecat_jax.utils.sim import mutate, PROFILE_PACBIO, PROFILE_NANOPORE
 
     prof = PROFILE_PACBIO if profile == "pacbio" else PROFILE_NANOPORE
     sub, ins, dele = (err * f for f in prof)
@@ -82,9 +82,9 @@ def build_pile(rng, truth, cov, err, profile, min_frac=0.35):
 
 
 def run_pile(reads, seeds, opts):
-    from mecat_tpu.io.packed_db import PackedDB
-    from mecat_tpu.io.fasta import FastaRecord
-    from mecat_tpu.pipeline.cns import (CnsStats, correct_batch,
+    from mecat_jax.io.packed_db import PackedDB
+    from mecat_jax.io.fasta import FastaRecord
+    from mecat_jax.pipeline.cns import (CnsStats, correct_batch,
                                         correct_batch_rounds)
 
     db = PackedDB.from_records(
@@ -123,11 +123,11 @@ def main(argv=None):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from mecat_tpu.pipeline.cns import CnsOptions
-    from mecat_tpu.utils.accuracy import edit_stats, identity_pct
-    from mecat_tpu.utils.sim import random_genome
+    from mecat_jax.pipeline.cns import CnsOptions
+    from mecat_jax.utils.accuracy import edit_stats, identity_pct
+    from mecat_jax.utils.sim import random_genome
 
-    from mecat_tpu import constants as Cst
+    from mecat_jax import constants as Cst
 
     tech = (Cst.TECH_PACBIO if args.profile == "pacbio"
             else Cst.TECH_NANOPORE)

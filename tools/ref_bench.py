@@ -21,15 +21,15 @@ import numpy as np  # noqa: E402
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--dir", default="/tmp/ref_bench")
+    ap.add_argument("--dir", default=".artifacts/ref_bench")
     ap.add_argument("--ref-mb", type=float, default=46.0)
     ap.add_argument("--reads", type=int, default=2000)
     ap.add_argument("--mean-len", type=int, default=10000)
     ap.add_argument("--err", type=float, default=0.12)
     args = ap.parse_args(argv)
 
-    from mecat_tpu.io.fasta import write_fasta
-    from mecat_tpu.utils.sim import random_genome, simulate_reads
+    from mecat_jax.io.fasta import write_fasta
+    from mecat_jax.utils.sim import random_genome, simulate_reads
 
     d = args.dir
     os.makedirs(d, exist_ok=True)
@@ -49,11 +49,12 @@ def main(argv=None):
 
     out = {"ref_bases": G, "reads": int(db.n_reads),
            "read_bases": int(db.lengths.sum())}
+    # the CLI child holds the card; this parent stays off the device
     env = dict(os.environ)
     for mode, flag, name in (("sam", [], "out.sam"),):
         t0 = time.time()
         subprocess.run(
-            [sys.executable, "-m", "mecat_tpu.cli.mecat2ref", "-d",
+            [sys.executable, "-m", "mecat_jax.cli.mecat2ref", "-d",
              reads_path, "-r", ref_path, "-w", os.path.join(d, "wrk"),
              "-o", os.path.join(d, name)] + flag, check=True, env=env)
         dt = time.time() - t0

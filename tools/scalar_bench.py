@@ -22,7 +22,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-os.environ.setdefault("MECAT_TPU_PLATFORM", "cpu")  # no TPU needed
+os.environ.setdefault("JAX_PLATFORMS", "cpu")  # no accelerator needed
 
 
 def main(argv=None):
@@ -46,9 +46,9 @@ def main(argv=None):
                     help="1 = fwd-only (bench.py step parity), 2 = both")
     args = ap.parse_args(argv)
 
-    from mecat_tpu import constants as C
-    from mecat_tpu.native.scalar import ScalarEngine
-    from mecat_tpu.utils.sim import random_genome, simulate_reads
+    from mecat_jax import constants as C
+    from mecat_jax.native.scalar import ScalarEngine
+    from mecat_jax.utils.sim import random_genome, simulate_reads
 
     n_reads = max(128, int(args.genome * args.cov / args.mean_len))
     print(f"scalar_bench: genome={args.genome} reads={n_reads} "
@@ -90,8 +90,7 @@ def main(argv=None):
         passed_per_s=round(r["passed"] / wall, 3),
         reads_per_s=round(n_q / wall, 3),
         dp_gcells_per_s=round(cells / max(r["extend_s"], 1e-9) / 1e9, 4),
-        note="single thread, one sandbox host core (itself 10-20x slower "
-             "than a modern server core; see BASELINE.md correction band)",
+        note="single thread, one host core",
     )
     print(json.dumps(out), flush=True)
     return 0

@@ -35,8 +35,8 @@ def main(argv=None):
 
     import jax
     import jax.numpy as jnp
-    from mecat_tpu import constants as C
-    from mecat_tpu.ops.consensus_device import (
+    from mecat_jax import constants as C
+    from mecat_jax.ops.consensus_device import (
         call_tables, pack_emit_cov, _run_pooled_deletions_dev,
         _run_pooled_insertions_dev, _window_pooled_insertions_dev)
 
